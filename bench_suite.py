@@ -11,21 +11,17 @@ docs/benchmarks.svg panels; BASELINE.md):
   4. d=7 rotated surface code (Clifford)    - detector shots/s
 
 ``python bench_suite.py [workload ...]`` runs the named workloads (default:
-all). The headline driver metric stays in bench.py (d3 distillation only).
-
-Artifact discipline: every full run appends its JSON lines to
-``BENCH_SUITE_r{N}.json`` (N from the newest BENCH_r*.json present, or
-``TSIM_TPU_BENCH_ROUND``), so the per-panel numbers cited in
-docs/benchmarks.md have a reproducible capture file next to the driver's
-headline artifact.
+all); ``sweep`` and ``scaling`` run the error-rate sweep and the surface-code
+distance scaling. The headline metric stays in bench.py (d3 distillation
+only). Every JSON line names the device it ran on (platform, device kind,
+device count). Needs a GPU: without one it exits nonzero.
 """
 
-import glob
 import json
-import os
-import re
 import sys
 import time
+
+from tsim_tpu.utils import runtime
 
 
 def _log(msg):
@@ -84,8 +80,8 @@ def bench_d3_cultivation_full():
     s = cultivation_d3_grown(p=0.001, checks=2).compile_detector_sampler(
         seed=0
     )
-    # Rank peeling (round 5) cut the full plug 19.6k -> 1.1k terms, so the
-    # panel sustains far larger batches than the round-4 settings.
+    # Rank peeling cut the full plug 19.6k -> 1.1k terms, so the panel
+    # sustains large batches.
     return _throughput(
         s, 1 << 21, 1 << 17, use_detector_reference_sample=True
     )
@@ -100,8 +96,8 @@ def bench_d7_surface_code(p=0.001):
         after_reset_flip_probability=p,
     )
     s = c.compile_detector_sampler(seed=0)
-    # First runs pay this box's pathological first-touch page-fault cost
-    # on the multi-GB outputs; steady state reuses freed blocks.
+    # First runs pay the first-touch page-fault cost on the multi-GB
+    # outputs; steady state reuses freed blocks.
     return _throughput(s, 4 << 20, 4 << 20, repeats=4)
 
 
@@ -144,33 +140,13 @@ SWEEP = {
 SCALING_DISTANCES = [5, 7, 9, 11]
 
 
-def _artifact_path() -> str:
-    env = os.environ.get("TSIM_TPU_BENCH_ROUND")
-    if env:
-        return f"BENCH_SUITE_r{int(env):02d}.json"
-    rounds = [
-        int(m.group(1))
-        for f in glob.glob("BENCH_r*.json")
-        if (m := re.match(r"BENCH_r(\d+)\.json$", os.path.basename(f)))
-    ]
-    # Suite runs capture the round in progress: one past the newest driver
-    # artifact (the driver writes BENCH_r{N} at the END of round N).
-    n = (max(rounds) + 1) if rounds else 1
-    return f"BENCH_SUITE_r{n:02d}.json"
+def _record_line(line, device):
+    """Print one result line as soon as it is measured: a timeout mid-run
+    must not lose the points already printed."""
+    print(json.dumps({**line, "device": device}), flush=True)
 
 
-def _record_line(line, backend, persist):
-    """Append one capture line immediately: a timeout mid-run must not
-    lose the points already measured."""
-    print(json.dumps(line), flush=True)
-    if persist and backend == "tpu":
-        path = _artifact_path()
-        with open(path, "a") as f:
-            f.write(json.dumps(line) + "\n")
-        _log(f"appended to {path}")
-
-
-def _run_sweep(backend, persist=True):
+def _run_sweep(device):
     for name, (fn, ps) in SWEEP.items():
         for p in ps:
             _log(f"=== sweep {name} p={p} ===")
@@ -182,13 +158,12 @@ def _run_sweep(backend, persist=True):
                 "value": round(best, 1),
                 "unit": "shots/s",
                 "median": round(median, 1),
-                "backend": backend,
                 "total_s": round(time.perf_counter() - t0, 1),
             }
-            _record_line(line, backend, persist)
+            _record_line(line, device)
 
 
-def _run_scaling(backend, persist=True):
+def _run_scaling(device):
     for d in SCALING_DISTANCES:
         _log(f"=== surface code scaling d={d} ===")
         t0 = time.perf_counter()
@@ -199,30 +174,24 @@ def _run_scaling(backend, persist=True):
             "value": round(best, 1),
             "unit": "shots/s",
             "median": round(median, 1),
-            "backend": backend,
             "total_s": round(time.perf_counter() - t0, 1),
         }
-        _record_line(line, backend, persist)
+        _record_line(line, device)
 
 
 def main():
-    import jax
-
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    runtime.use_compile_cache()
+    device = runtime.require_gpu()
+    _log(f"card: {runtime.gpu_name_and_power_limit()}")
 
     args = sys.argv[1:]
-    backend = jax.default_backend()
     if args and args[0] == "sweep":
-        _run_sweep(backend)
+        _run_sweep(device)
         return
     if args and args[0] == "scaling":
-        _run_scaling(backend)
+        _run_scaling(device)
         return
     names = args or list(WORKLOADS)
-    # Named-panel runs persist too when asked (TSIM_TPU_BENCH_PERSIST=1):
-    # a bounded capture session runs panels one at a time.
-    persist = not args or os.environ.get("TSIM_TPU_BENCH_PERSIST") == "1"
     for name in names:
         _log(f"=== {name} ===")
         t0 = time.perf_counter()
@@ -232,10 +201,9 @@ def main():
             "value": round(best, 1),
             "unit": "shots/s",
             "median": round(median, 1),
-            "backend": backend,
             "total_s": round(time.perf_counter() - t0, 1),
         }
-        _record_line(line, backend, persist)
+        _record_line(line, device)
 
 
 if __name__ == "__main__":

@@ -35,10 +35,10 @@ OVERVIEW = [
         "# tsim_tpu overview\n\n"
         "`tsim_tpu` samples measurements, detectors, and exact outcome\n"
         "probabilities from *noisy non-Clifford* stabilizer circuits, on\n"
-        "TPUs. Circuits are written in Stim's program-text dialect\n"
+        "GPUs. Circuits are written in Stim's program-text dialect\n"
         "(plus parametric rotations); compilation runs a ZX-calculus\n"
         "stabilizer-rank decomposition and emits static-shape binary\n"
-        "tensors that a fused exact-arithmetic kernel evaluates per shot."
+        "tensors that the device evaluates per shot."
     ),
     code(
         "import numpy as np\n"
@@ -97,9 +97,8 @@ OVERVIEW = [
         "## Scaling out\n\n"
         "Every compiled sampler accepts `mesh=jax.sharding.Mesh(...)`; the\n"
         "shot axis shards across devices via `shard_map`, with per-device\n"
-        "RNG fold-in and an ICI `pmax` norm monitor. See\n"
-        "`docs/benchmarks.md` for single-chip v5e throughput (5.2M+\n"
-        "detector shots/s on the 35-qubit d=3 distillation benchmark)."
+        "RNG fold-in and a `pmax` norm monitor over the mesh. See\n"
+        "`docs/benchmarks.md` for the benchmark workloads."
     ),
 ]
 

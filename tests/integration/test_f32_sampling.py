@@ -1,32 +1,28 @@
 """f32 sampling-mode accuracy on the real flagship workload.
 
-The TPU default sampling path evaluates term products in complex f32
-(``compile/pallas_sample.py``); graph-sum cancellation is the failure
-mode f32 cannot bound a priori, so the d=3 distillation benchmark's own
+On a GPU the sampler evaluates term products in complex f32
+(``compile/sample_f32.py``); graph-sum cancellation is the failure mode
+f32 cannot bound a priori, so the d=3 distillation benchmark's own
 compiled rungs (>=100 graphs) are checked against the exact Z[w] path:
 
-* eval-level (CPU CI): the three largest rungs, 512 random noise rows,
+* eval-level (CPU): the three largest rungs, 512 random noise rows,
   relative agreement ~1e-5 — far inside the sampler's 3e-3 norm-monitor
-  tolerance (``pallas_sample.norm_deviation_tolerance``);
-* sampling-level (TPU, where the kernel compiles rather than
-  interprets): 65k shots forced-f32 vs exact detector fractions at
-  4 sigma, with the norm monitor escalated to an error.
+  tolerance (``sample_f32.norm_deviation_tolerance``), through the plain
+  form and through the Triton kernel in interpret mode;
+* sampling-level (GPU): 65k shots forced-f32 vs exact detector fractions
+  at 4 sigma, with the norm monitor escalated to an error.
 """
 
 import warnings
 
-import jax
 import numpy as np
 import pytest
 
+import tsim_tpu.compile.sample_f32 as sf
 from tsim_tpu.compile.evaluate import evaluate_abs
-from tsim_tpu.compile.pallas_sample import (
-    evaluate_abs_sample_f32,
-    sample_eligible,
-)
+from tsim_tpu.compile.sample_f32 import evaluate_abs_f32, sample_eligible
+from tsim_tpu.compile.sample_triton import evaluate_abs_f32_triton
 from tsim_tpu.models.distillation import distillation_d3
-
-ON_TPU = jax.default_backend() == "tpu"
 
 
 @pytest.fixture(scope="module")
@@ -34,7 +30,8 @@ def d3_sampler():
     return distillation_d3(p=0.05).compile_detector_sampler(seed=0)
 
 
-def test_f32_eval_matches_exact_on_distillation_rungs(d3_sampler):
+@pytest.mark.parametrize("form", ["plain", "triton"])
+def test_f32_eval_matches_exact_on_distillation_rungs(d3_sampler, form):
     csgs = sorted(
         (
             csg
@@ -49,23 +46,19 @@ def test_f32_eval_matches_exact_on_distillation_rungs(d3_sampler):
         assert sample_eligible(csg)
         vals = rng.integers(0, 2, size=(512, csg.n_params)).astype(np.uint8)
         want = np.asarray(evaluate_abs(csg, vals))
-        got = np.asarray(evaluate_abs_sample_f32(csg, vals))
+        if form == "plain":
+            got = np.asarray(evaluate_abs_f32(csg, vals))
+        else:
+            got = np.asarray(evaluate_abs_f32_triton(csg, vals, interpret=True))
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-8)
 
 
-@pytest.mark.skipif(
-    not ON_TPU,
-    reason="sampling 65k shots through interpret-mode kernels takes "
-    "minutes on this 1-core box; statistical check runs on TPU where "
-    "f32 is the default path",
-)
-def test_f32_sampling_statistics_match_exact(monkeypatch):
-    import tsim_tpu.compile.pallas_sample as ps
-
+@pytest.mark.gpu
+def test_f32_sampling_statistics_match_exact(gpu, monkeypatch):
     shots = 1 << 16
     fracs = {}
     for mode in ("exact", "f32"):
-        monkeypatch.setattr(ps, "_SAMPLE_MODE", mode)
+        monkeypatch.setattr(sf, "_SAMPLE_MODE", mode)
         s = distillation_d3(p=0.05).compile_detector_sampler(seed=0)
         with warnings.catch_warnings():
             # Any norm-monitor warning (deviation past the mode's
@@ -77,36 +70,3 @@ def test_f32_sampling_statistics_match_exact(monkeypatch):
     sigma = np.sqrt(np.maximum(exact * (1 - exact), 1e-6) / shots)
     z = np.abs(f32 - exact) / sigma
     assert z.max() < 4.0 * np.sqrt(2), (z.max(), exact, f32)
-
-
-def test_f32_eval_layout_knobs_agree(d3_sampler, monkeypatch):
-    """Layout knobs must not change results: the transposed cutoff raised
-    past a >=100-graph rung routes it through the transposed layout, and
-    the packed-dot escape hatch routes the wide layout through per-term
-    dots; both must match the exact path on the same inputs."""
-    import tsim_tpu.compile.pallas_sample as ps
-
-    csg = max(
-        (
-            c
-            for comp in d3_sampler._program.components
-            for c in comp.compiled_scalar_graphs
-        ),
-        key=lambda c: c.num_graphs,
-    )
-    assert csg.num_graphs >= 100
-    rng = np.random.default_rng(23)
-    vals = rng.integers(0, 2, size=(64, csg.n_params)).astype(np.uint8)
-    want = np.asarray(evaluate_abs(csg, vals))
-    for env, val in (
-        ("TSIM_TPU_SAMPLE_SMALL_G", "256"),  # transposed layout at G>=100
-        ("TSIM_TPU_SAMPLE_TPACK", "0"),  # wide layout, per-term dots
-    ):
-        monkeypatch.setenv(env, val)
-        ps._SAMPLE_CACHE.clear()
-        ps._SAMPLE_DEVICE_CACHE.clear()
-        got = np.asarray(evaluate_abs_sample_f32(csg, vals))
-        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-8)
-        monkeypatch.delenv(env)
-    ps._SAMPLE_CACHE.clear()
-    ps._SAMPLE_DEVICE_CACHE.clear()

@@ -1,8 +1,9 @@
-"""tsim_tpu: TPU-native Stim-compatible sampler for noisy non-Clifford circuits.
+"""tsim_tpu: Stim-compatible GPU sampler for noisy non-Clifford circuits.
 
 A from-scratch JAX/XLA/Pallas framework with the capabilities of tsim:
 ZX-calculus stabilizer-rank compilation of noisy non-Clifford circuits into
-static-shape binary tensors, sampled by exact-arithmetic TPU kernels.
+static-shape binary tensors, sampled on the device in exact Z[w] or
+float32 arithmetic.
 """
 
 from .circuit import Circuit

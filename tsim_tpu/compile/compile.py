@@ -56,9 +56,9 @@ def _compile_node_phases(g_list, char_to_idx, n_params) -> NodePhases:
         for j, (c, bits) in enumerate(rows):
             phases[i, j] = c
             params[i, j] = bits
-    # (T, G) layout: the graph axis stays trailing on device (TPU tiling).
-    # Leaves stay numpy so jit embeds them as literals (restricted backends
-    # cannot fetch device arrays during trace-time constant embedding).
+    # (T, G) layout: the graph axis stays trailing, so per-term slices are
+    # contiguous (B, G) planes. Leaves stay numpy: the f32 path builds its
+    # tables from them at trace time.
     return NodePhases(
         phases=np.ascontiguousarray(phases.T),
         params=np.ascontiguousarray(params.transpose(1, 0, 2)),
@@ -194,7 +194,7 @@ def _compile_prefactor(g_list) -> ScalarPrefactor:
             floatfactor[-1] = [d.a, d.b, d.c, d.d]
         power2.append(p2 // 2)
     has_approx = any(abs(a - 1.0) > 1e-12 for a in approx)
-    # Complex stored as float32 (G, 2) pairs: TPU backends lack complex dtypes.
+    # Complex stored as float32 (G, 2) pairs, the layout the exact path reads.
     approx_ri = np.array([[a.real, a.imag] for a in approx], dtype=np.float32)
     return ScalarPrefactor(
         phase_indices=np.array(phase_idx, dtype=np.uint8),

@@ -1,14 +1,14 @@
-"""Evaluation of compiled scalar graphs: the sampling hot kernel.
+"""Exact evaluation of compiled scalar graphs.
 
-Complex-free by design: TPU backends lack native complex support, so
-amplitudes are carried as (real, imag) float32 pairs derived from the exact
-Z[w] coefficients:
+Products and sums stay exact in Z[w] until one conversion at the end, to
+(real, imag) float32 pairs derived from the exact Z[w] coefficients:
 
     re = c0 + (c1 - c3) / sqrt(2),   im = c2 + (c1 + c3) / sqrt(2)
 
-``evaluate_abs`` (used by the samplers) returns |amplitude| directly;
-``evaluate`` returns complex values for host-side use (reference API parity
-with ``tsim/compile/evaluate.py``).
+``evaluate_abs`` (the reference for the f32 sampling path in
+``sample_f32.py``, and the sampler's path for rungs that path cannot take)
+returns |amplitude| directly; ``evaluate`` returns complex values for
+host-side use (reference API parity with ``tsim/compile/evaluate.py``).
 """
 
 from __future__ import annotations
@@ -65,16 +65,15 @@ def _evaluate_parts(circuit: CompiledScalarGraphs, param_vals: Array):
 def _anchor(out: Array, param_vals: Array) -> Array:
     """Tie a (possibly constant) result to the inputs.
 
-    Parameter-free circuits constant-fold to literal outputs, which some TPU
-    backends cannot materialize; a zero-valued data dependence keeps the
-    program non-constant at no cost.
+    Parameter-free circuits constant-fold to literal outputs; a zero-valued
+    data dependence keeps the program non-constant at no cost.
     """
     return out + 0.0 * jnp.sum(param_vals, axis=-1).astype(out.dtype)
 
 
 @jax.jit
 def evaluate_abs(circuit: CompiledScalarGraphs, param_vals: Array) -> Array:
-    """|amplitude| per batch row, all-real arithmetic (TPU-safe)."""
+    """|amplitude| per batch row, all-real arithmetic."""
     prefactor = circuit.prefactor
     if prefactor.phase_indices.shape[0] == 0:
         return _anchor(jnp.zeros(param_vals.shape[0], dtype=jnp.float32), param_vals)
@@ -98,7 +97,7 @@ def evaluate_abs(circuit: CompiledScalarGraphs, param_vals: Array) -> Array:
 
 
 def evaluate(circuit: CompiledScalarGraphs, param_vals: Array) -> Array:
-    """Complex amplitudes (host/CPU use; TPU backends may lack complex)."""
+    """Complex amplitudes (host-side use)."""
     prefactor = circuit.prefactor
     if prefactor.phase_indices.shape[0] == 0:
         return jnp.zeros(param_vals.shape[0], dtype=jnp.complex64)

@@ -16,8 +16,8 @@ from ..ops.gf2 import matmul_gf2
 from ..utils.pytree import pytree_dataclass, static_field
 
 # UNIT_PHASES[k] = exact coefficients of w^k in the (1, w, i, w^3) basis.
-# NOTE: kept as numpy so jit embeds them as literals -- creating device
-# constants at import time breaks on backends with restricted d2h.
+# Kept as numpy so jit embeds them as literals and importing the module
+# touches no device.
 UNIT_PHASES = np.array(
     [
         [1, 0, 0, 0],
@@ -48,8 +48,8 @@ def _identity_esa(batch: int, num_graphs: int) -> ExactScalarArray:
 def omega_coeffs(k: Array) -> Array:
     """Exact (4, ...) coefficients of w^k via arithmetic (gather-free).
 
-    w^k = (-1)^(k // 4) * basis[k % 4]; table gathers lower to pathological
-    code on some TPU backends, comparisons stay on the VPU.
+    w^k = (-1)^(k // 4) * basis[k % 4], built from comparisons that fuse
+    into the elementwise consumers.
     """
     k = k.astype(jnp.int32)
     sign = 1 - 2 * (k // 4)
@@ -69,7 +69,7 @@ class NodePhases:
 
     ``phases`` stores alpha in eighth-turns (0-7); padded slots are masked to
     the multiplicative identity via ``counts``.
-    Shapes (term axis leading, graph axis trailing for TPU tiling):
+    Shapes (term axis leading, graph axis trailing):
     phases (T, G); params (T, G, P); counts (G,).
     """
 

@@ -5,15 +5,14 @@ and an int32 power array. Products and sums stay exact until a single float
 conversion at the end (the numerical heart of the sampler; reference
 ``tsim/core/exact_scalar.py`` has the same contract).
 
-TPU layout note: coefficients are stored with the 4-component axis LEADING
-(shape ``(4, ...)``), never trailing. A trailing size-4 axis would be padded
-to the 128-lane tile by the TPU layout (T(8,128)), a 32x HBM blowup; with
-the component axis leading, the batch/graph axes occupy the tiled lanes.
+Layout: coefficients are stored with the 4-component axis LEADING (shape
+``(4, ...)``), so each component is a contiguous plane over the batch and
+graph axes.
 
 Reductions run as balanced trees (one reduce step per level keeps
 coefficients small by dividing common factors of 2 into ``power``): total
-HBM traffic is O(1) passes over the term array instead of one pass per
-term, and no scans appear (restricted TPU backends mishandle short scans).
+device-memory traffic is O(1) passes over the term array instead of one
+pass per term.
 """
 
 from __future__ import annotations
@@ -25,8 +24,7 @@ import numpy as _np
 
 from ..utils.pytree import pytree_dataclass
 
-# numpy scalar, NOT a device op: module-level eager complex math would
-# execute on import and poisons TPU backends without complex support.
+# numpy scalar, NOT a device op: importing the module touches no device.
 _E4 = _np.exp(1j * _np.pi / 4)
 
 def _mul_coeffs(d1: Array, d2: Array) -> Array:
@@ -75,7 +73,7 @@ def _reduce_tree(power, coeffs, op, value_axis):
     A sequential fold makes N full passes over the (4, batch, graphs)
     accumulator — the dominant HBM traffic of the sampler. Halving pairs
     instead touches each element O(1) times total (2x one pass) and keeps
-    the TPU vector units saturated at every level.
+    every level a wide elementwise op.
 
     ``value_axis`` indexes the value shape (power's axes); the corresponding
     coeffs axis is ``value_axis + 1`` (leading component axis).
@@ -155,7 +153,7 @@ class ExactScalarArray:
         return ExactScalarArray(coeffs=c, power=p)
 
     def to_real_imag(self) -> tuple[Array, Array]:
-        """(re, im) float32 pair including the 2^power scale (TPU-safe)."""
+        """(re, im) float32 pair including the 2^power scale."""
         c = self.coeffs.astype(jnp.float32)
         inv = 0.7071067811865476
         re = c[0] + (c[1] - c[3]) * inv

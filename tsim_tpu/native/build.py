@@ -2,7 +2,9 @@
 
 No packaging dependencies (pybind11 is unavailable): the shared object is
 compiled with g++ on first use and cached under ``_build/`` keyed by a hash
-of the source, so repeat imports are instant and source edits rebuild.
+of the source, the flags and the host CPU, so repeat imports are instant,
+source edits rebuild, and a library built with ``-march=native`` on one
+machine is never loaded on another.
 """
 
 from __future__ import annotations
@@ -19,6 +21,21 @@ _LOCK = threading.Lock()
 _CACHE: dict[str, ctypes.CDLL] = {}
 
 
+def _host_cpu() -> bytes:
+    """Identity of this host's CPU for the build key: the model name and
+    feature flags of ``/proc/cpuinfo``, or the platform's machine string
+    where that file does not exist."""
+    try:
+        with open("/proc/cpuinfo", "rb") as fh:
+            lines = fh.read().splitlines()
+    except OSError:
+        import platform
+
+        return platform.machine().encode()
+    keep = (b"model name", b"flags", b"Features", b"CPU part")
+    return b"\n".join(sorted({ln for ln in lines if ln.startswith(keep)}))
+
+
 class NativeBuildError(RuntimeError):
     pass
 
@@ -33,7 +50,7 @@ def load_library(name: str) -> ctypes.CDLL:
         flags = ["-O3", "-march=native", "-std=c++17", "-shared", "-fPIC"]
         with open(src, "rb") as fh:
             digest = hashlib.sha256(
-                fh.read() + " ".join(flags).encode()
+                fh.read() + " ".join(flags).encode() + _host_cpu()
             ).hexdigest()[:16]
         os.makedirs(_BUILD_DIR, exist_ok=True)
         so_path = os.path.join(_BUILD_DIR, f"{name}-{digest}.so")

@@ -1,7 +1,7 @@
 // Native parametric-ZX reduction engine.
 //
 // C++ port of the paramSafe rewrite system in tsim_tpu/zx/{rules,simplify}.py
-// (the TPU-era replacement for the reference's pyzx-param dependency, see
+// (this repo's replacement for the reference's pyzx-param dependency, see
 // reference SURVEY.md section 2.1 row 2). The graph arrives serialized as a
 // flat int64/double stream, is reduced to a fixpoint with exact symbolic
 // scalar tracking, and is serialized back. Any construct outside the engine's

@@ -1,12 +1,10 @@
 """GF(2) linear algebra: basis extraction (host) and parity matmul (device).
 
 The parity matmul is the FLOP core of sampling (reference
-``tsim/utils/linalg.py:81-102``). On TPU we provide two paths:
-
-* ``matmul_gf2``: float32 GEMM then mod-2 — maps directly onto the MXU.
-  Exact because inner products are bounded by P < 2^24.
-* a fused Pallas kernel (``tsim_tpu.ops.parity_pallas``) used by the
-  evaluator to avoid materializing the (B, G, T) parity tensor in HBM.
+``tsim/utils/linalg.py:81-102``). ``matmul_gf2`` is a float GEMM then
+mod 2: exact because operands are 0/1 and inner products are small
+integers (at most P), which every float format the dot may use holds
+exactly.
 """
 
 from __future__ import annotations
@@ -80,11 +78,10 @@ def find_basis(vectors: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
 def static_take_columns(x: Array, idx) -> Array:
     """Column selection with STATIC indices, gather-free.
 
-    Dynamic gathers are unimplemented on some TPU backends. Narrow
-    selections compile to slices + one concat; wide ones (hundreds of
-    columns, e.g. surface-code direct detectors) use a one-hot f32 matmul —
-    one MXU op instead of a program-bloating concat of single-column
-    slices.
+    Narrow selections compile to slices + one concat; wide ones (hundreds
+    of columns, e.g. surface-code direct detectors) use a one-hot f32
+    matmul instead of a program-bloating concat of single-column slices.
+    The one-hot dot is exact: one 0/1 weight per output column.
     """
     idx = [int(i) for i in np.asarray(idx).ravel()]
     if not idx:
@@ -99,10 +96,10 @@ def static_take_columns(x: Array, idx) -> Array:
 def matmul_gf2(a: Array, b: Array) -> Array:
     """Binary dot products mod 2: ``a_(T,G,P) x b_(B,P) -> (B,T,G)``.
 
-    float32 GEMM (MXU-friendly) then mod 2. The mod must run in float32:
-    float->uint8 casts saturate rather than wrap, which would corrupt
-    parities for inner products above 255. The graph axis G stays trailing
-    so the result tiles onto (8, 128) TPU lanes without padding waste.
+    float32 GEMM then mod 2. The mod must run in float32: float->uint8
+    casts saturate rather than wrap, which would corrupt parities for inner
+    products above 255. The graph axis G stays trailing, matching the term
+    families' (T, G) layout.
     """
     T, G, _ = a.shape
     if G * T == 0:

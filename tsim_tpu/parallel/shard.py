@@ -1,4 +1,4 @@
-"""Multi-device sampling: shard the shot axis over an ICI mesh.
+"""Multi-device sampling: shard the shot axis over a flat device mesh.
 
 Compiled term tensors are tiny (reference ``SURVEY.md`` section 2.3) so they
 are replicated on every device; the shot batch is sharded on its leading
@@ -14,8 +14,7 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental.shard_map import shard_map
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from jax.sharding import Mesh, PartitionSpec as P
 
 from ..core.types import CompiledProgram
 from ..ops.gf2 import static_take_columns
@@ -77,12 +76,12 @@ def sharded_sample_program(
         return combined, max_dev
 
     keys = jnp.broadcast_to(key, (n_dev,) + key.shape)
-    fn = shard_map(
+    fn = jax.shard_map(
         step,
         mesh=mesh,
         in_specs=(P(axis_name), P(axis_name)),
         out_specs=(P(axis_name), P()),
-        check_rep=False,
+        check_vma=False,
     )
     return fn(f_params, keys)
 
